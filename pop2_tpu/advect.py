@@ -2,7 +2,7 @@
 
 Reference: ``source/advection.F90`` — flux velocities ``comp_flux_vel``
 (:1970), centered tracer advection ``advt_centered`` (:2139), momentum
-advection with metric terms ``advu`` (:1127). TPU-first: the reference's
+advection with metric terms ``advu`` (:1127). The reference's
 k-sequential carry of the vertical velocity (WTK -> WTKB per level) becomes a
 masked ``cumsum`` over the whole column, and all levels/tracers are computed
 at once. Schemes: centered, upwind3 (QUICKEST); lw_lim later.

@@ -2,7 +2,7 @@
 
 Reference: ``source/baroclinic.F90`` — ``baroclinic_driver`` (:578, tracer and
 momentum block loops), ``clinic`` (:1635, Fx/Fy assembly), ``tracer_update``
-(:1902), ``baroclinic_correct_adjust`` (:1217). TPU-first: the reference's
+(:1902), ``baroclinic_correct_adjust`` (:1217). The reference's
 per-block, per-level OMP loops with carried vertical state collapse into
 whole-field (nt, km, ny, nx) expressions; halo updates disappear into the
 shift ops.
@@ -71,8 +71,7 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
            leapfrog: bool, kpp_statics=None,
            sw_profile=None, passive=None,
            ovf_statics=None, ovf_trans=None, ovf_sel=None,
-           ovf_sets_tavg=None,
-           want_gm_diags: bool = True) -> BaroclinicOut:
+           ovf_sets_tavg=None) -> BaroclinicOut:
     c2dtt, c2dtu, c2dtp = _timestep_arrays(cfg, leapfrog)
     beta = cfg.time.alpha if leapfrog else cfg.time.theta
     gamma = cfg.time.gamma
@@ -112,68 +111,33 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
 
     # ---- tracer tendencies (tracer_update, source/baroclinic.F90:1902) ----
     gm_diag = None
-    from pop2_tpu import tracer_pallas
-    use_full = tracer_pallas.available(cfg, grid)
-    use_advdiff = (not use_full
-                   and tracer_pallas.available_advdiff(cfg, grid))
-    if use_full:
-        # fused Pallas kernel: hdifft + comp_flux_vel/advt + vdifft in one
-        # HBM pass (the reference's hot loops advection.F90:2139,
-        # hmix_del2.F90:1034, vertical_mix.F90:691)
-        ft = tracer_pallas.tracer_tendency(
-            cfg, grid, state.u_cur, state.v_cur, state.tracer_cur, tmix,
-            state.tracer_old, coeffs.vdc, forcing.stf, dh)
+    if cfg.hmix_tracer == "gm":
+        # GM/Redi tendency + its |S|^2 vertical diffusivity folded into
+        # the implicit solve (source/hmix_gm.F90:1741-1748)
+        from pop2_tpu import gm as gm_mod
+        hblt = coeffs.kpp.hblt if (cfg.vmix == "kpp"
+                                   and coeffs.kpp is not None) else None
+        gm_out = gm_mod.hdifft_gm(cfg, grid, bc, ts_range, tmix,
+                                  hblt=hblt, umix=umix, vmix_m=vmix_m)
+        ft = gm_out.gtk
+        gm_diag = gm_out
+        coeffs = coeffs._replace(vdc=coeffs.vdc + gm_out.vdc_gm[None])
     else:
-        submeso_done = False
-        if cfg.hmix_tracer == "gm":
-            # GM/Redi tendency + its |S|^2 vertical diffusivity folded into
-            # the implicit solve (source/hmix_gm.F90:1741-1748)
-            from pop2_tpu import gm as gm_mod
-            from pop2_tpu import gm_chain_pallas
-            hblt = coeffs.kpp.hblt if (cfg.vmix == "kpp"
-                                       and coeffs.kpp is not None) else None
-            hmxl_bl = coeffs.kpp.hmxl if (cfg.vmix == "kpp"
-                                          and coeffs.kpp
-                                          is not None) else None
-            if gm_chain_pallas.available(cfg, grid):
-                # fully fused production GM chain (slopes -> tapers ->
-                # merged streamfunction -> flux), with the submesoscale
-                # skew fluxes folded into the same weight packs
-                gm_out, submeso_done = gm_chain_pallas.hdifft_chain(
-                    cfg, grid, bc, ts_range, tmix, hblt=hblt,
-                    hmxl=hmxl_bl, want_diags=want_gm_diags)
-            else:
-                gm_out = gm_mod.hdifft_gm(cfg, grid, bc, ts_range, tmix,
-                                          hblt=hblt, umix=umix,
-                                          vmix_m=vmix_m)
-            ft = gm_out.gtk
-            gm_diag = gm_out
-            coeffs = coeffs._replace(vdc=coeffs.vdc + gm_out.vdc_gm[None])
-        else:
-            ft = hmix.hdifft(cfg, grid, bc, tmix)
-        if cfg.lsubmeso and not submeso_done:
-            # submesoscale mixed-layer restratification (mix_submeso.F90,
-            # called alongside hdifft in tracer_update)
-            from pop2_tpu import submeso as submeso_mod
-            hmxl = coeffs.kpp.hmxl if (cfg.vmix == "kpp"
-                                       and coeffs.kpp is not None) else None
-            gtk_sm, _ = submeso_mod.submeso_tendency(cfg, grid, bc, ts_range,
-                                                     tmix, hmxl=hmxl)
-            ft = ft + gtk_sm
-        if use_advdiff:
-            # advection + explicit vertical diffusion fused in one HBM
-            # pass (with_del2=False); the horizontal mixing above stays
-            # jnp — this is the production gx1v7 fused path
-            ft = ft + tracer_pallas.tracer_tendency(
-                cfg, grid, state.u_cur, state.v_cur, state.tracer_cur,
-                tmix, state.tracer_old, coeffs.vdc, forcing.stf, dh)
-        else:
-            fv = advect.comp_flux_vel(cfg, grid, bc, state.u_cur,
-                                      state.v_cur, dh)
-            ft = ft - advect.advt(cfg, grid, bc, fv, state.tracer_cur,
-                                  tmix=tmix, c2dtt=c2dtt)
-            ft = ft + vmix.vdifft(cfg, grid, coeffs.vdc, state.tracer_old,
-                                  forcing.stf)
+        ft = hmix.hdifft(cfg, grid, bc, tmix)
+    if cfg.lsubmeso:
+        # submesoscale mixed-layer restratification (mix_submeso.F90,
+        # called alongside hdifft in tracer_update)
+        from pop2_tpu import submeso as submeso_mod
+        hmxl = coeffs.kpp.hmxl if (cfg.vmix == "kpp"
+                                   and coeffs.kpp is not None) else None
+        gtk_sm, _ = submeso_mod.submeso_tendency(cfg, grid, bc, ts_range,
+                                                 tmix, hmxl=hmxl)
+        ft = ft + gtk_sm
+    fv = advect.comp_flux_vel(cfg, grid, bc, state.u_cur, state.v_cur, dh)
+    ft = ft - advect.advt(cfg, grid, bc, fv, state.tracer_cur,
+                          tmix=tmix, c2dtt=c2dtt)
+    ft = ft + vmix.vdifft(cfg, grid, coeffs.vdc, state.tracer_old,
+                          forcing.stf)
     if varthick:
         # freshwater tracer flux into the surface layer
         # (source/baroclinic.F90:2128-2138)
@@ -277,7 +241,7 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
                 else jnp.stack(dts)
         elif not varthick:
             # tracer 0 has its own diffusivity class; 1..nt share vdc[1]
-            # and one factorization (single fused kernel on TPU)
+            # and one factorization
             dT0 = tridiag.impvmixt(
                 rhs[0], coeffs.vdc[0], state.psurf_cur, grid.KMT,
                 _dzt_arg(cfg, grid), grid.vgrid.dzwr, c2dtt,
@@ -305,26 +269,16 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
 
     # ---- momentum (clinic, source/baroclinic.F90:1635-1895) ---------------
     dzc = thickness_u(cfg, grid)
-    from pop2_tpu import clinic_pallas
-    if clinic_pallas.available(cfg, grid):
-        # fused Pallas kernel: advu + coriolis + gradp + hdiffu + vdiffu
-        # + ZX/ZY in one HBM pass (the reference's hot loops
-        # advection.F90:1127, hmix_del2.F90:892, vertical_mix.F90:853,
-        # pressure_grad.F90:185)
-        fx, fy, zx, zy = clinic_pallas.clinic_rhs(
-            cfg, grid, state, umix, vmix_m, rho_new, coeffs.vvc,
-            forcing.smf, dhu, leapfrog)
-    else:
-        fx, fy = clinic_forcing_jnp(
-            cfg, grid, bc, state.u_cur, state.v_cur, state.u_old,
-            state.v_old, umix, vmix_m, state.rho_old, state.rho_cur,
-            rho_new, coeffs.vvc, forcing.smf, dhu, leapfrog)
+    fx, fy = clinic_forcing_jnp(
+        cfg, grid, bc, state.u_cur, state.v_cur, state.u_old,
+        state.v_old, umix, vmix_m, state.rho_old, state.rho_cur,
+        rho_new, coeffs.vvc, forcing.smf, dhu, leapfrog)
 
-        # vertical average of forcing, thickness-weighted under partial
-        # bottom cells (source/baroclinic.F90:1035-1057); fx/fy are
-        # already zero below the bottom
-        zx = grid.HUR * jnp.sum(fx * dzc, axis=0)
-        zy = grid.HUR * jnp.sum(fy * dzc, axis=0)
+    # vertical average of forcing, thickness-weighted under partial
+    # bottom cells (source/baroclinic.F90:1035-1057); fx/fy are
+    # already zero below the bottom
+    zx = grid.HUR * jnp.sum(fx * dzc, axis=0)
+    zy = grid.HUR * jnp.sum(fy * dzc, axis=0)
 
     # implicit Coriolis 2x2 transform (source/baroclinic.F90:1013-1027)
     if cfg.time.impcor:
@@ -361,9 +315,8 @@ def clinic_forcing_jnp(cfg, grid, bc, ucur, vcur, uold, vold, umix,
                        vmix_m, rho_old, rho_cur, rho_new, vvc, smf, dhu,
                        leapfrog: bool):
     """The explicit momentum forcing Fx, Fy = -L(u) + coriolis - grad(p)
-    + D_H + D_V (clinic, source/baroclinic.F90:1635-1895) as plain jnp —
-    the fallback for the fused clinic kernel and the boundary-slab patch
-    it uses on the tripole top rows. Returns (fx, fy) masked to ocean."""
+    + D_H + D_V (clinic, source/baroclinic.F90:1635-1895). Returns
+    (fx, fy) masked to ocean."""
     gamma = cfg.time.gamma
     luk, lvk = advect.advu(cfg, grid, bc, ucur, vcur, dhu)
     fx = -luk

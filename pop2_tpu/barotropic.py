@@ -106,8 +106,7 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, state: State,
         # f64-grade solve on an fp32 model: mixed-precision iterative
         # refinement with a compensated residual (solvers.solve_refined)
         # — the production tolerance 1e-13 is below the plain-fp32
-        # residual floor, and TPUs have no native f64 datapath (straight
-        # dtype promotion is either demoted or runs at emulation speed)
+        # residual floor of a plain fp32 solve
         psurf_new, iters, rr = solvers.solve_refined(
             cfg, op, bc, x0, rhs, eigs=pcsi_eigs, precond=precond)
     else:

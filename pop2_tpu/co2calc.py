@@ -6,7 +6,7 @@ k1/k2 (Millero-95 pH_SWS or Lueker pH_tot refits), kb, kw, ks, kf, and
 the salinity-proportional borate/sulfate/fluoride totals :319-600) and the
 total-alkalinity pH solve (the reference Newton-safeguarded ``drtsafe``
 :1000-1200; here a fixed-iteration bisection — branch-free and
-TPU-friendly, converging to ~1e-12 in 50 halvings).
+vectorizable, converging to ~1e-12 in 50 halvings).
 
 Units inside: mol/kg and atm; pH on the chosen scale.
 """

@@ -85,8 +85,8 @@ class SolverConfig:
     # 'float64' promotes the 2-D solve to fp64 regardless of the model
     # dtype so the production convergence_criterion=1e-13
     # (namelist_defaults_pop.xml:258) is reachable under an fp32 model —
-    # the solve is 2-D, so the emulated-fp64 cost on TPU is negligible
-    # next to the 3-D physics
+    # the solve is 2-D, so its fp64 cost is small next to the 3-D
+    # physics
     solve_dtype: str = "model"         # 'model' | 'float64'
 
 

@@ -179,7 +179,8 @@ def moc_streamfunction(cfg: ModelConfig, grid: Grid, state: State,
     # bin index per column
     idx = jnp.clip(jnp.searchsorted(edges, lat) - 1, 0, nlat_bins - 1)
     one_hot = jax.nn.one_hot(idx, nlat_bins, dtype=vdx.dtype)  # (ny,nx,nb)
-    vt = jnp.einsum("kyx,yxb->kb", vdx, one_hot)  # northward transport
+    vt = jnp.einsum("kyx,yxb->kb", vdx, one_hot,  # northward transport
+                    precision=jax.lax.Precision.HIGHEST)
     moc = jnp.cumsum(vt[::-1], axis=0)[::-1] * 1.0e-12
     return np.asarray(edges), moc
 
@@ -204,8 +205,10 @@ def meridional_transport(cfg: ModelConfig, grid: Grid, state: State,
     edges = jnp.linspace(-90.0, 90.0, nlat_bins + 1)
     idx = jnp.clip(jnp.searchsorted(edges, lat) - 1, 0, nlat_bins - 1)
     one_hot = jax.nn.one_hot(idx, nlat_bins, dtype=vdx.dtype)
-    heat = jnp.einsum("kyx,yxb->b", vdx * t_u[0], one_hot)
-    salt = jnp.einsum("kyx,yxb->b", vdx * t_u[1], one_hot)
+    heat = jnp.einsum("kyx,yxb->b", vdx * t_u[0], one_hot,
+                      precision=jax.lax.Precision.HIGHEST)
+    salt = jnp.einsum("kyx,yxb->b", vdx * t_u[1], one_hot,
+                      precision=jax.lax.Precision.HIGHEST)
     # heat: degC cm^3/s -> PW via rho cp; salt: msu cm^3/s -> Sv*ppt
     heat_pw = heat * const.RHO_SW * const.CP_SW * 1.0e-22
     salt_svppt = salt * const.SALT_TO_PPT * 1.0e-12

@@ -4,7 +4,7 @@ Reference: the reference couples to the external MARBL library
 (``source/ecosys_driver.F90`` holds the interface instances and repacks POP
 columns for MARBL; ``Externals_POP.cfg:9-14`` pins marbl0.43.0), whose core
 is the BEC model of Moore et al. (2004). MARBL itself is not in the
-reference tree; this module is a native TPU-first rebuild of the BEC-class
+reference tree; this module is a native whole-field rebuild of the BEC-class
 ecosystem the driver exists to serve: three phytoplankton functional types
 (small phyto with implicit calcifiers, diatoms, diazotrophs) + one adaptive
 zooplankton, full nutrient/light co-limitation with dynamic Chl
@@ -13,7 +13,7 @@ with depth-resolved remineralization (sediment-conserving), nitrification,
 CaCO3 and opal cycles, dissolved organic matter, oxygen, and air-sea O2/CO2
 exchange through the carbonate solver (``co2calc.py``).
 
-TPU-first: where MARBL runs one column at a time behind the repacking loop
+Where MARBL runs one column at a time behind the repacking loop
 in ecosys_driver.F90:134-135, every process here is a whole-field
 (km, ny, nx) elementwise expression; the only sequential-in-k pieces — light
 attenuation and sinking-particle remineralization — are cumulative/scan ops

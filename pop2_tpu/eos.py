@@ -1,6 +1,6 @@
 """Equation of state rho(Theta, S, p).
 
-Reference: ``source/state_mod.F90``. Implemented TPU-first as pure elementwise
+Reference: ``source/state_mod.F90``. Implemented as pure elementwise
 functions over whole (km, ny, nx) fields — a rational polynomial that XLA fuses
 into neighboring stencil work (the reference evaluates it level-by-level per
 block, source/state_mod.F90:258-683).

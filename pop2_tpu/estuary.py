@@ -53,7 +53,7 @@ SCHMIDT_EBM = 2.2   # estuarine Schmidt number (:1082)
 def _cubic_neg_real_root(b, c, d):
     """Vectorized real roots of x^3 + b x^2 + c x + d = 0, returning the
     (physically unique) negative real root, 0 where none exists — the
-    TPU-native replacement for the reference's cubsolve + root scan
+    vectorized replacement for the reference's cubsolve + root scan
     (:1112-1131). Uses the trigonometric method for three real roots and
     Cardano for one."""
     p = c - b * b / 3.0

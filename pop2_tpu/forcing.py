@@ -12,13 +12,13 @@ from __future__ import annotations
 from typing import Optional
 
 import jax.numpy as jnp
-from flax import struct
+from pop2_tpu import pytree
 
 from pop2_tpu.config import ModelConfig
 from pop2_tpu.grid import Grid
 
 
-@struct.dataclass
+@pytree.dataclass
 class Forcing:
     smf: jnp.ndarray       # (2, ny, nx) surface momentum flux at U points
     smft: jnp.ndarray      # (2, ny, nx) same at T points

@@ -5,7 +5,7 @@ forcing data interpolated to model time with 'nearest', 'linear', or
 '4point' (iterated-linear / Neville cubic, interp_4pt :1144-1238 and
 det :1209-1238) interpolation.
 
-TPU-first design: instead of the reference's mutable module state
+Design: instead of the reference's mutable module state
 (update windows, interp_last bookkeeping), a ``MonthlyClimatology`` is an
 immutable pytree of the 12 stacked fields; interpolation to an arbitrary
 model hour is a pure jit-friendly function of a traced scalar, so
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from pop2_tpu import pytree
 
 HOURS_PER_YEAR = 365.0 * 24.0
 
@@ -51,12 +51,12 @@ def _neville(tt, dd, t):
     return det(p123, p234, tt[0], tt[3])
 
 
-@struct.dataclass
+@pytree.dataclass
 class MonthlyClimatology:
     """12 stacked monthly fields, shape (12, ...), with mid-month times."""
     data: jnp.ndarray
     times: jnp.ndarray                                    # (12,) hours
-    interp: str = struct.field(pytree_node=False, default="linear")
+    interp: str = pytree.static_field(default="linear")
 
     @classmethod
     def create(cls, data, interp: str = "linear",
@@ -98,10 +98,10 @@ class MonthlyClimatology:
         return _neville(tt, dd, t)
 
 
-@struct.dataclass
+@pytree.dataclass
 class TimeSeries:
     """Shared scalar/vector time-series forcing (CO2 records, CFC
-    atmospheric histories): the TPU-side counterpart of
+    atmospheric histories): the counterpart of
     ``source/forcing_timeseries_mod.F90`` (forcing_timeseries_dataset:
     linear interpolation in model year with endpoint handling).
 

@@ -9,7 +9,7 @@ horizontal diffusion, and the |S|^2 vertical flux folded into the implicit
 vertical diffusivity (VDC_GM). Transition-layer and flow-dependent kappa
 options follow in a later round.
 
-TPU-first: the reference's level-by-level sweep with carried two-level ring
+The reference's level-by-level sweep with carried two-level ring
 buffers and the FZTOP carry becomes whole-column arrays; every quantity is
 computed for all (half, face, k) at once and the vertical flux divergence is
 a shifted difference.
@@ -272,7 +272,7 @@ def kappa_vertical_bfre(cfg: ModelConfig, grid: Grid, ts_range, tmix, sdl,
     cand = cand.at[-1].set(False)
     exists = jnp.any(cand, axis=0)
     k_min0 = jnp.argmax(cand, axis=0)              # 0-based level index
-    # one-hot masked reduction (TPU-fast; kpp.blmix.gather rationale)
+    # one-hot masked reduction (see kpp.blmix.gather)
     oh_ref = (jax.lax.broadcasted_iota(jnp.int32, (km, 1, 1), 0)
               == k_min0[None]).astype(n2.dtype)
     n2_ref = jnp.sum(n2 * oh_ref, axis=0)
@@ -741,7 +741,7 @@ def kappa_fields(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, tmix,
 def _aniso_factors(cfg: ModelConfig, grid: Grid, bc: BC, umix, vmix_m):
     """Directional diffusivity factors (ax, ay) for anisotropic GM
     (source/hmix_gm_aniso.F90, Smith & Gent 2004). The full scheme carries
-    a 2x2 kappa tensor; the TPU rebuild keeps its diagonal in the rotated
+    a 2x2 kappa tensor; this rebuild keeps its diagonal in the rotated
     frame — kappa_x = kmaj cos^2(theta) + kmin sin^2(theta) and the
     complement for kappa_y, theta the local flow direction ('flow') or zero
     ('grid') — which preserves the scheme's intent (suppress cross-stream
@@ -763,7 +763,7 @@ def _aniso_factors(cfg: ModelConfig, grid: Grid, bc: BC, umix, vmix_m):
 
 def hdifft_gm(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, tmix,
               hblt: Optional[jnp.ndarray] = None,
-              umix=None, vmix_m=None, use_kernels: bool = True) -> GMOut:
+              umix=None, vmix_m=None) -> GMOut:
     """GM/Redi tracer tendency + VDC_GM (hdifft_gm,
     source/hmix_gm.F90:1102-2219); kappa per cfg.gm_kappa_*_type,
     optionally anisotropic (cfg.gm_aniso, hmix_gm_aniso.F90)."""
@@ -870,14 +870,9 @@ def hdifft_gm(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, tmix,
             jnp.where(at_bottom, cfg.gm_ah_bkg_bottom, hor_diff[1]))
 
     cancellation = kappa_equal and cfg.gm_slm_r == cfg.gm_slm_b
-    if use_kernels:
-        gtk, vdc_gm = flux_assembly(cfg, grid, bc, tx, ty, tz, slx, sly,
-                                    sf_slx, sf_sly, kisop_x, kisop_y,
-                                    hor_diff, cancellation)
-    else:
-        gtk, vdc_gm = flux_assembly_jnp(cfg, grid, bc, tx, ty, tz, slx,
-                                        sly, sf_slx, sf_sly, kisop_x,
-                                        kisop_y, hor_diff, cancellation)
+    gtk, vdc_gm = flux_assembly(cfg, grid, bc, tx, ty, tz, slx, sly,
+                                sf_slx, sf_sly, kisop_x, kisop_y,
+                                hor_diff, cancellation)
     return GMOut(gtk=gtk, vdc_gm=vdc_gm,
                  kappa_isop=0.5 * (kisop[0] + kisop[1]),
                  kappa_thic=0.5 * (kthic[0] + kthic[1]),
@@ -892,27 +887,7 @@ def flux_assembly(cfg: ModelConfig, grid: Grid, bc: BC, tx, ty, tz,
                   cancellation: bool):
     """GM/Redi flux assembly: (GTK, VDC_GM) from the merged per-face
     fields (horizontal + skew + vertical fluxes and their divergence,
-    source/hmix_gm.F90:1720-2080). This is the traffic-dominant, per-
-    tracer part of the scheme; gm_pallas fuses it into one HBM pass when
-    available, with this jnp formulation as the fallback and oracle."""
-    if gm_pallas_available(cfg, grid):
-        from pop2_tpu import gm_pallas
-        return gm_pallas.flux_assembly_tiles_wrapper(
-            cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
-            kisop_x, hor_diff, cancellation)
-    return flux_assembly_jnp(cfg, grid, bc, tx, ty, tz, slx, sly,
-                             sf_slx, sf_sly, kisop_x, kisop_y, hor_diff,
-                             cancellation)
-
-
-def gm_pallas_available(cfg, grid) -> bool:
-    from pop2_tpu import gm_pallas
-    return cfg.gm_aniso is None and gm_pallas.available(cfg, grid)
-
-
-def flux_assembly_jnp(cfg: ModelConfig, grid: Grid, bc: BC, tx, ty, tz,
-                      slx, sly, sf_slx, sf_sly, kisop_x, kisop_y,
-                      hor_diff, cancellation: bool):
+    source/hmix_gm.F90:1720-2080)."""
     km = cfg.km
     dz = jnp.reshape(grid.vgrid.dz, (km, 1, 1))
     dzr = jnp.reshape(grid.vgrid.dzr, (km, 1, 1))

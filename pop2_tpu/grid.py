@@ -26,14 +26,14 @@ from typing import Optional
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from pop2_tpu import pytree
 
 from pop2_tpu import constants as const
 from pop2_tpu.config import ModelConfig
 from pop2_tpu.stencil import BC
 
 
-@struct.dataclass
+@pytree.dataclass
 class VGrid:
     """Vertical grid arrays, all shape (km,) except dzw/dzwr (km+1,).
 
@@ -52,7 +52,7 @@ class VGrid:
     pressz: jnp.ndarray  # reference pressure (bars) at layer midpoints
 
 
-@struct.dataclass
+@pytree.dataclass
 class Grid:
     """All time-invariant grid fields. Horizontal arrays are (ny, nx);
     3-D masks are (km, ny, nx)."""

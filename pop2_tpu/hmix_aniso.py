@@ -6,7 +6,7 @@ viscosities parallel/perpendicular to an alignment direction.  The
 functional (quarter-cell) discretization guarantees positive-definite
 energy dissipation for ``visc_para > visc_perp`` (hdiffu_aniso :557-1062).
 
-TPU-first design: the four quarter-cells become a leading axis of size 4
+Design: the four quarter-cells become a leading axis of size 4
 on dense ``(4, km, ny, nx)`` strain/stress tensors, so the whole column is
 evaluated in one fused batched elementwise pass (no k loop, no block
 halos); neighbor access is roll-shifts that XLA turns into halo
@@ -21,7 +21,7 @@ from typing import Optional
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from pop2_tpu import pytree
 
 from pop2_tpu import constants as const
 from pop2_tpu.config import ModelConfig
@@ -32,7 +32,7 @@ DIST_MAX = 1.0e10       # distance used where a row has no western boundary
 VVSL = 1500.0e2         # visc velocity scale length (cm), unused ccsm branch
 
 
-@struct.dataclass
+@pytree.dataclass
 class AnisoStatics:
     """Precomputed metric factors and viscosity fields (init_aniso)."""
     h1w: jnp.ndarray     # = HTN           (ny, nx)

@@ -4,7 +4,7 @@ The reference ships its real auxiliary input data in-tree as plain text
 (``input_templates/``): vertical grids, depth-acceleration profiles,
 overflow region/orientation data, region-id tables, section-transport
 definitions, and tavg contents files.  These parsers read those exact
-formats so the TPU build runs on the reference's real data instead of
+formats so the model runs on the reference's real data instead of
 synthesized stand-ins.
 
 Formats (reference reader cited per function):

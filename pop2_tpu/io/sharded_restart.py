@@ -1,13 +1,13 @@
 """Sharded (multi-host-capable) checkpointing via orbax/tensorstore.
 
 Reference: ``source/restart.F90`` writes the full prognostic state through
-gather-to-master netCDF/binary IO. The TPU-native replacement keeps every
+gather-to-master netCDF/binary IO. The sharded replacement keeps every
 shard on its owning process: orbax writes a tensorstore array per State
 field with the sharding recorded, so N processes write N slabs in parallel
 and restore re-establishes the same (or a compatible) sharding — no
 gather/scatter, no single-writer bottleneck. The npz path (``restart.py``)
 remains the single-host/portable format; this is the scale path
-(SURVEY.md §5.4 TPU equivalent: "orbax/tensorstore sharded checkpoint").
+(SURVEY.md §5.4: "orbax/tensorstore sharded checkpoint").
 """
 
 from __future__ import annotations

@@ -11,13 +11,13 @@ library whose physics this module reimplements directly):
   * smooth_hblt    :3699   1-1-4-1-1 spatial filter of HBLT
   * KPP_SRC        :1277   non-local transport as a tracer source
 
-TPU-first design notes:
+Design notes:
   * the reference's per-level loops carrying 3-slot ring buffers (bldepth's
     kupper/kup/kdn) become a ``lax.scan`` over levels with the rotation in
     the carry;
   * the O(km x kref) displaced-density evaluations for the surface-layer
     reference become ONE batched EOS call over precomputed (k, m) pairs with
-    a host-built sparse weight matrix contracted on the MXU;
+    a host-built sparse weight matrix contracted at full precision;
   * the boundary-layer-depth search is branch-free: the "first level where
     Ri_bulk > Ricr" select folds into the scan carry;
   * per-column gathers at KBL use ``take_along_axis`` over the small km axis.
@@ -252,7 +252,8 @@ def buoydiff(cfg: ModelConfig, grid: Grid, st: KPPStatics, trcr):
     Sm = S[st.pair_m]
     pk = pz[st.pair_k][:, None, None]
     rho_pairs = _rho_full(cfg, Tm, Sm, pk)
-    rhoavg = jnp.einsum("kp,pyx->kyx", st.pair_w, rho_pairs)
+    rhoavg = jnp.einsum("kp,pyx->kyx", st.pair_w, rho_pairs,
+                        precision=jax.lax.Precision.HIGHEST)
 
     safe = jnp.where(rho_k != 0.0, rho_k, 1.0)
     dbsfc = jnp.where(rho_k != 0.0,
@@ -515,9 +516,12 @@ def bldepth(cfg: ModelConfig, grid: Grid, bc: BC, st: KPPStatics,
     stable = stable_all[0]
 
     # surface-layer-averaged reference velocities for every target level:
-    # one MXU contraction with the host-built weights (:2334-2349)
-    uref = jnp.einsum("lm,myx->lyx", st.uref_w, umix)
-    vref = jnp.einsum("lm,myx->lyx", st.uref_w, vmix_)
+    # one contraction with the host-built weights (:2334-2349); HIGHEST
+    # keeps float32 out of reduced-precision (TF32) matrix units
+    uref = jnp.einsum("lm,myx->lyx", st.uref_w, umix,
+                      precision=jax.lax.Precision.HIGHEST)
+    vref = jnp.einsum("lm,myx->lyx", st.uref_w, vmix_,
+                      precision=jax.lax.Precision.HIGHEST)
     work = (uref - umix) ** 2 + (vref - vmix_) ** 2
     # T point takes the max of the 4 surrounding U values (:2371-2378)
     vshear_all = jnp.maximum(
@@ -693,11 +697,9 @@ def blmix(cfg: ModelConfig, grid: Grid, st: KPPStatics, visc, vdc_t, vdc_s,
     kn = jnp.where(casea > 0.5, kbl - 1, kbl).astype(jnp.int32)
 
     # gather interface values around KN; interface arrays are indexed so
-    # that reference k = array index (0..km+1). A one-hot masked
-    # reduction instead of take_along_axis: XLA lowers dynamic gathers
-    # to the (slow) scatter/gather unit on TPU, while the compare+
-    # select+sum fuses into one pass over the column (measured 17 ms ->
-    # ~3 ms for the whole of blmix at gx1v7 dims)
+    # that reference k = array index (0..km+1), as a one-hot masked
+    # reduction: the compare+select+sum fuses into one pass over the
+    # column (a take_along_axis gather is the alternative form)
     _kar = jax.lax.broadcasted_iota(jnp.int32, (km + 2, 1, 1), 0)
 
     def gather(iface, idx):
@@ -834,7 +836,7 @@ def hmxl_dr_diag(cfg: ModelConfig, grid: Grid, trcr):
     k0 = jnp.argmax(cond, axis=0)                     # first bracketing k
     ztk = jnp.asarray(zt)[k0]
     ztk1 = jnp.asarray(zt)[k0 + 1]
-    # one-hot masked reduction (TPU-fast; see blmix.gather)
+    # one-hot masked reduction (see blmix.gather)
     kar = jax.lax.broadcasted_iota(jnp.int32, (km - 1, 1, 1), 0)
     oh = (kar == k0[None]).astype(rho_k.dtype)
     r_k = jnp.sum(rho_k * oh, axis=0)

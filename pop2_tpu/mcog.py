@@ -11,7 +11,7 @@ binned fields — consumed per-bin by the BGC interior forcing
 (``source/ecosys_forcing_mod.F90:1551-1622``) and accumulated into
 per-bin tavg fields.
 
-TPU-first: the reference's per-point ``import_mcog`` loop
+The reference's per-point ``import_mcog`` loop
 (``source/mcog.F90:578-717``) becomes one whole-field pass — the
 column->bin segment sum is a tiny one-hot contraction over the leading
 category axis, everything else is elementwise. The reference's abort on
@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Sequence
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -83,7 +84,8 @@ def import_mcog(frac_col, fracr_col, qsw_fracr_col, swnet, kmt,
     swnet = jnp.where(ocean, swnet, 0.0)
 
     B = jnp.asarray(_bin_matrix(col_to_bin, nbins), frac_col.dtype)
-    seg = lambda a: jnp.einsum("bc,cyx->byx", B, a)      # noqa: E731
+    seg = lambda a: jnp.einsum(                          # noqa: E731
+        "bc,cyx->byx", B, a, precision=jax.lax.Precision.HIGHEST)
 
     frac_bin = jnp.minimum(1.0, seg(frac_col))
     fracr_bin = jnp.minimum(1.0, seg(fracr_col))

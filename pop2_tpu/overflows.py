@@ -18,7 +18,7 @@ product-water insertion at the neutrally-buoyant product set
 ovf_UV_solution :5884), and the barotropic couplings
 (ovf_rhs_brtrpc_momentum :5068, ovf_rhs_brtrpc_continuity :5381).
 
-TPU-first reduction: instead of the reference's point-to-point moves and
+Reduction: instead of the reference's point-to-point moves and
 per-rank group schedules (~3000 lines of MPI plumbing), the overflow
 enters as a conservative closed-circuit tracer exchange over statically
 cropped region slices: product cells are relaxed toward the product
@@ -49,6 +49,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from pop2_tpu import constants as const
@@ -343,7 +344,8 @@ def _region_tavg(cfg, grid, rd: RegionData, tracer):
     vol3 = (thickness_t(cfg, grid) * grid.TAREA[None])[
         k0:k1 + 1, j0:j1 + 1, i0:i1 + 1]
     crop = tracer[:, k0:k1 + 1, j0:j1 + 1, i0:i1 + 1]
-    return jnp.einsum("kji,kji,nkji->n", rd.mask, vol3, crop) / rd.vol
+    return jnp.einsum("kji,kji,nkji->n", rd.mask, vol3, crop,
+                      precision=jax.lax.Precision.HIGHEST) / rd.vol
 
 
 def transports(cfg: ModelConfig, grid: Grid, st: OverflowStatics, tracer):
@@ -533,7 +535,7 @@ def qsurf(cfg: ModelConfig, grid: Grid, st: OverflowStatics, trans,
     """Vertically-integrated prescribed overflow transports as an equivalent
     surface volume-flux field (cm/s, positive into the column).
 
-    This is the TPU-native re-expression of the reference's barotropic
+    This is the whole-field re-expression of the reference's barotropic
     continuity RHS injection (ovf_rhs_brtrpc_continuity + the prescribed
     sidewall transports of ovf_UV_solution, source/overflows.F90:5068-5120,
     :5381, :5884): the product-water transport M_p arrives in the product

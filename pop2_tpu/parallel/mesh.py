@@ -1,14 +1,14 @@
 """Device mesh and sharding for 2-D spatial domain decomposition.
 
-TPU-native replacement for the reference's block decomposition + distribution
+Replacement for the reference's block decomposition + distribution
 machinery (``source/blocks.F90``, ``source/distribution.F90``,
 ``source/domain.F90``): the horizontal (ny, nx) plane is sharded over a 2-D
 logical mesh ('y', 'x'); the vertical and tracer dimensions are replicated
 per shard (the reference never decomposes km/nt either — SURVEY.md §5.7).
-XLA's SPMD partitioner inserts the halo exchanges (collective-permutes on
-ICI) for every shifted stencil access, subsuming ``mpi/POP_HaloMod.F90``, and
-turns masked ``jnp.sum`` reductions into ``psum`` trees, subsuming
-``mpi/global_reductions.F90``.
+XLA's SPMD partitioner inserts the halo exchanges (collective-permutes,
+over NVLink between GPUs) for every shifted stencil access, subsuming
+``mpi/POP_HaloMod.F90``, and turns masked ``jnp.sum`` reductions into
+``psum`` trees, subsuming ``mpi/global_reductions.F90``.
 
 Land-only blocks are NOT eliminated (the reference drops them,
 ``source/domain.F90:63-72``); dense sharding wastes those FLOPs and we account
@@ -61,9 +61,9 @@ def sharded_model(cfg, mesh: Optional[Mesh] = None):
     from the input shardings."""
     from pop2_tpu.model import Model
     model = Model(cfg)
-    # per-shard Pallas dispatch: Model derives its mesh from cfg.mesh_shape;
-    # an explicitly provided mesh (e.g. pre-built over specific devices)
-    # overrides it before the step first traces
+    # per-shard Thomas kernel dispatch: Model derives its mesh from
+    # cfg.mesh_shape; an explicitly provided mesh (e.g. pre-built over
+    # specific devices) overrides it before the step first traces
     if mesh is None:
         mesh = model._mesh if model._mesh is not None \
             else make_mesh(cfg.mesh_shape)

@@ -3,7 +3,7 @@ meshes, and host-local data movement.
 
 The reference's entire communication layer exists to run one ocean across
 many processes (``mpi/POP_CommMod.F90`` init_communicate, MPI_Init;
-``mpi/POP_HaloMod.F90`` ghost updates; ``mpi/gather_scatter.F90``). The TPU
+``mpi/POP_HaloMod.F90`` ghost updates; ``mpi/gather_scatter.F90``). The JAX
 equivalent is: ``jax.distributed.initialize`` (one JAX process per host,
 all hosts see the global device list), a ``Mesh`` spanning every process's
 devices, and ``jax.make_array_from_process_local_data`` /
@@ -31,10 +31,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None,
                            local_device_ids=None) -> int:
-    """Bring up the distributed JAX runtime (the TPU analogue of
-    init_communicate, mpi/POP_CommMod.F90:64-105). On TPU pods the
-    arguments auto-detect from the environment; on CPU/GPU clusters pass
-    them explicitly. Idempotent: returns the process index, initializing
+    """Bring up the distributed JAX runtime (the analogue of
+    init_communicate, mpi/POP_CommMod.F90:64-105). On CPU/GPU clusters
+    pass the coordinator address, process count and id explicitly. Idempotent: returns the process index, initializing
     only on the first call. Single-process callers may skip this entirely.
     """
     # no jax.devices()/process_count() probes before initialize: any backend

@@ -6,7 +6,7 @@ tavg, :207-1562) and ``source/iage_mod.F90`` (the simplest package and the
 template for new ones). Tracers occupy slots 2.. (0-based) of the tracer
 array, after TEMP and SALT.
 
-TPU-first: a package is a small object with pure functions returning whole
+A package is a small object with pure functions returning whole
 (km, ny, nx) source fields; the framework stacks per-package contributions
 into the (nt, km, ny, nx) tendency in one shot.
 """

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import os
 
-from pop2_tpu.config import ModelConfig, get_config
+from pop2_tpu.config import ModelConfig, SolverConfig, get_config
 
 REF_TEMPLATES = "/root/reference/input_templates"
 
@@ -35,6 +35,33 @@ def get_production_config(name: str = "prod_full",
         ovf = os.path.join(templates, "gx1v7_overflow")
         if (cfg.nx, cfg.ny) == (320, 384) and os.path.exists(ovf):
             cfg = cfg.with_(overflows=it.read_overflows(ovf))
+    if overrides:
+        cfg = cfg.with_(**overrides)
+    return cfg
+
+
+def get_production_menu_mini(dtype: str = "float32",
+                             tol: float = 1.0e-4, **overrides) -> ModelConfig:
+    """The flagship physics menu (KPP with the horizontally-varying
+    background, GM bfre + transition layer, upwind3, tidal mixing,
+    submesoscale, chlorophyll shortwave, frazil ice, f64-grade elliptic
+    solve) at the ``mini`` grid's dimensions: the production code path at a
+    size that compiles and steps in seconds on any device."""
+    cfg = get_config("mini").with_(
+        dtype=dtype,
+        tadvect="upwind3",
+        vmix="kpp", kpp_lhoriz_varying_bckgrnd=True, bckgrnd_vdc2=0.0,
+        kpp_ldbl_diff=True, kpp_lshort_wave=True,
+        hmix_tracer="gm", gm_kappa_isop_type="bfre",
+        gm_kappa_thic_type="bfre", gm_transition_layer=True,
+        ltidal_mixing=True, tidal_energy_const=1.0e-3,
+        lsubmeso=True, sw_absorption="chlorophyll", chl_option="const",
+        liceform=True,
+        solver=SolverConfig(choice="ChronGear",
+                            convergence_criterion=tol,
+                            max_iterations=100 if tol >= 1e-6 else 1000,
+                            convergence_check_freq=5,
+                            solve_dtype="float64"))
     if overrides:
         cfg = cfg.with_(**overrides)
     return cfg

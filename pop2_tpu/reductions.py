@@ -6,8 +6,8 @@ switches ``global_sum`` to per-block partial sums combined in a fixed block
 order (``mpi/global_reductions.F90:134,599``; enabled from
 ``source/initial.F90:730-741``; exercised by PET/ERS system tests).
 
-On TPU the ordering hazard is different — XLA reduces shard-locally and
-combines over the mesh, so a (4,2) mesh and a single chip produce different
+Under XLA the ordering hazard is different — it reduces shard-locally and
+combines over the mesh, so a (4,2) mesh and a single device produce different
 floating-point orderings — but the cure can be stronger than the
 reference's: **order-independent fixed-point accumulation**. Each value is
 split into three 30-bit integer limbs relative to the power-of-two ceiling
@@ -37,17 +37,14 @@ _S3 = float(2 ** (3 * _P))
 def _b4b_sum(x, axes):
     """Order-independent fixed-point sum of ``x`` over ``axes``."""
     absmax = jnp.max(jnp.abs(x))  # max is exact in any order
-    # power-of-two scale >= absmax. jnp.frexp would be the natural choice
-    # but its wide-int bitcast does not lower for the TPU backend under the
-    # x64 rewriter; floor(log2)+ldexp uses only elementary ops. log2 may
+    # power-of-two scale >= absmax from floor(log2) + exp2, elementary
+    # ops only. log2 may
     # round at exact powers of two, so the result is nudged up if it came
     # out below absmax — a 2x overestimate only spends one of the 90 limb
     # bits. Division by a power of two is exact, so y is an exact scaling.
     safe = jnp.where(absmax > 0, absmax, jnp.asarray(1.0, x.dtype))
     ex = jnp.floor(jnp.log2(safe)) + 1.0
-    # exp2 of an integer-valued float is an exact power of two (jnp.ldexp
-    # would be the obvious spelling, but it lowers through frexp's wide-int
-    # bitcast, which the TPU X64 rewriter rejects)
+    # exp2 of an integer-valued float is an exact power of two
     scale = jnp.exp2(ex.astype(x.dtype))
     scale = jnp.where(scale < safe, 2.0 * scale, scale)
     scale = jnp.where(absmax > 0, scale, jnp.asarray(1.0, x.dtype))

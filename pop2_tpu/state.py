@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from pop2_tpu import pytree
 
 from pop2_tpu import constants as const
 from pop2_tpu.config import ModelConfig
@@ -22,7 +22,7 @@ from pop2_tpu.grid import Grid
 from pop2_tpu import eos
 
 
-@struct.dataclass
+@pytree.dataclass
 class State:
     """Two-time-level prognostic state (shapes: tracer (nt,km,ny,nx),
     velocity/rho (km,ny,nx), 2-D fields (ny,nx))."""

@@ -1,6 +1,6 @@
 """B-grid shift and stencil operators.
 
-TPU-first replacement for the reference's ghost-cell machinery: fields are
+Replacement for the reference's ghost-cell machinery: fields are
 global dense arrays shaped ``(..., ny, nx)`` and neighbor access is expressed
 with roll/pad shifts. Under ``pjit`` on a sharded mesh, XLA lowers these shifts
 to halo exchanges (collective-permutes) automatically — this subsumes

@@ -150,8 +150,7 @@ def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
                              dh, dhu, leapfrog, kpp_statics=kpp_statics,
                              sw_profile=sw_profile, passive=passive,
                              ovf_statics=ovf_statics, ovf_trans=ovf_trans,
-                             ovf_sel=ovf_sel, ovf_sets_tavg=ovf_sets_tavg,
-                             want_gm_diags=with_extras)
+                             ovf_sel=ovf_sel, ovf_sets_tavg=ovf_sets_tavg)
 
     # 3. implicit barotropic solve (source/step_mod.F90:437); at overflow
     # sidewall columns the vertically-integrated forcing is renormalized

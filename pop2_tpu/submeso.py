@@ -6,7 +6,7 @@ implemented as a skew flux with the same quarter-cell structure as GM
 (submeso_sf :341-772, submeso_flux :779-1008). Density/tracer face
 differences are shared with GM (hmix_gm_submeso_share.F90).
 
-TPU-first: the streamfunction is a dense (2 faces, 2 halves, km, ny, nx)
+The streamfunction is a dense (2 faces, 2 halves, km, ny, nx)
 array produced in one batched pass (the reference's CONTINUE_INTEGRAL
 masked k loops become closed-form weight vectors), and the flux divergence
 reuses the skew-flux assembly style of ``gm.py``.

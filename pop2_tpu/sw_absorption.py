@@ -5,7 +5,7 @@ transmission (:786-805), per-level absorption profile (:364-369), tracer
 source ``add_sw_absorb`` (:818-905), and the chlorophyll-dependent variant
 (Ohlmann 2003 Table 1a coefficients :135-217; transmission
 Trans(z) = A1 exp(-B1 z) + A2 exp(-B2 z) built as a 400-entry log-chl lookup
-table :640-718). TPU-first: instead of the lookup table the A/B coefficients
+table :640-718). Instead of the lookup table the A/B coefficients
 are interpolated in log-chl directly on the (ny, nx) chlorophyll field and
 the transmission evaluated in closed form — pure elementwise math XLA fuses
 into the tracer update.

@@ -3,7 +3,7 @@
 Reference: ``source/tavg.F90`` (7985 lines) — a multi-stream registry of ~630
 accumulated fields written at stream frequencies, with the accumulators
 checkpointed so running means survive restarts (:1570, :2325). This module
-rebuilds the core mechanism TPU-first:
+rebuilds the core mechanism as pure functions:
 
   * a registry of pure field functions (cfg, grid, state, aux) -> (ny,nx) or
     (km,ny,nx) arrays (the reference's scattered ``accumulate_tavg_field``

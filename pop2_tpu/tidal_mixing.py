@@ -8,7 +8,7 @@ in KPP interior mixing as an addition to the background diffusivity capped
 at ``tidal_mix_max`` (vmix_kpp.F90:1755-1835, tidal_compute_diff
 :3046-3140).
 
-TPU-first: the time-invariant coefficient Gamma q E F(z) is a dense
+The time-invariant coefficient Gamma q E F(z) is a dense
 (km, ny, nx) array built host-side; the per-step work is one fused
 elementwise divide by N^2 inside ``ri_iwmix``.
 """

@@ -1,7 +1,7 @@
 """Hierarchical wall-clock timers.
 
 Reference: ``source/timers.F90`` — named timers with start/stop and a final
-max/min/avg table (:874). TPU adaptation: device work is asynchronous, so a
+max/min/avg table (:874). Adaptation: device work is asynchronous, so a
 timed section wraps its result in ``jax.block_until_ready`` before stopping;
 section names mirror the reference's instrumentation points (TOTAL / STEP /
 BAROCLINIC / BAROTROPIC / 3D-UPDATE / OUTPUT) for apples-to-apples

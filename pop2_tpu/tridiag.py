@@ -1,12 +1,12 @@
 """Batched implicit vertical-mixing tridiagonal solves.
 
-TPU-first port of the Thomas-algorithm sweeps of
-``source/vertical_mix.F90:1164`` (impvmixt), ``:1460`` (impvmixt_correct) and
-``:1679`` (impvmixu): one ``lax.scan`` down the column (forward elimination)
-and one reversed scan (back substitution), fully vectorized over every (ny,nx)
-column in the VPU lanes. The k dimension is tiny (20-62) and sequential by
-nature; all the parallelism lives in the horizontal, which is exactly how the
-reference's per-column loops vectorize on a TPU.
+Port of the Thomas-algorithm sweeps of ``source/vertical_mix.F90:1164``
+(impvmixt), ``:1460`` (impvmixt_correct) and ``:1679`` (impvmixu): one
+``lax.scan`` down the column (forward elimination) and one reversed scan
+(back substitution), vectorized over every (ny,nx) column. The k dimension
+is small (20-62) and sequential by nature; all the parallelism lives in the
+horizontal. On a GPU the same sweep runs as one Pallas kernel
+(``tridiag_pallas.py``).
 
 System solved per column (no partial bottom cells), for the increment F:
 
@@ -110,32 +110,45 @@ def _thomas(hfac, H1, A, kmax, rhs_terms):
     return out
 
 
-def _pallas_path(dz, rhs_dtype):
+def _coupling(vdc, dz, dzwr, km, aidif):
+    """Subdiagonal coupling A_k = aidif*VDC_k/dzw_k, zero on the bottom
+    level (no flux through the bottom of the grid)."""
+    A = aidif * _mid_spacing_r(dz, dzwr, km) * vdc
+    return A.at[-1].set(0.0)
+
+
+def _solve(hfac, H1, A, kmax, rhs):
+    """Solve every column's system for each of ``rhs`` (nr, km, ny, nx),
+    unscaled; all right-hand sides share one factorization.
+
+    With a 1-D thickness the Pallas kernel (tridiag_pallas.py) solves when
+    the computation is lowered for CUDA, the lax.scan sweep elsewhere; 3-D
+    (partial bottom cell) thickness always takes the scan."""
+    def scan(hfac, H1, kmax, A, rhs):
+        hfac = jnp.reshape(hfac, (-1,) + (1,) * (A.ndim - 1)) \
+            if hfac.ndim == 1 else hfac
+        return jnp.stack(_thomas(hfac, H1, A, kmax, [hfac * r for r in rhs]))
+
+    if hfac.shape[1:] != (1, 1):
+        return scan(hfac, H1, kmax, A, rhs)
     from pop2_tpu import tridiag_pallas
-    return tridiag_pallas.available(dz, rhs_dtype)
+    return tridiag_pallas.thomas(jnp.reshape(hfac, (-1,)), H1, kmax, A, rhs,
+                                 fallback=scan)
 
 
 def impvmixt_batch(rhs, vdc, psurf, kmt, dz, dzwr, c2dtt, aidif: float,
                    varthick: bool):
-    """Multi-tracer implicit mixing sharing one factorization: all tracers
-    in ``rhs`` (nr, km, ny, nx) use the same diffusivity ``vdc``
-    (km, ny, nx). On TPU/f32 this runs as a single fused Pallas Thomas
-    sweep (tridiag_pallas.py); otherwise the lax.scan path."""
+    """Multi-tracer implicit mixing: all tracers in ``rhs`` (nr, km, ny, nx)
+    use the same diffusivity ``vdc`` (km, ny, nx) and so one factorization.
+    Arguments otherwise as ``impvmixt``; returns (nr, km, ny, nx)."""
     km = rhs.shape[1]
-    if _pallas_path(dz, rhs.dtype):
-        from pop2_tpu import tridiag_pallas
-        hfac1 = dz / c2dtt
-        A = aidif * _mid_spacing_r(dz, dzwr, km) * vdc
-        A = A.at[-1].set(0.0)
-        h1 = jnp.broadcast_to(
-            hfac1[0] + (psurf / (const.GRAV * c2dtt[0]) if varthick
-                        else 0.0), rhs.shape[2:])
-        return tridiag_pallas.thomas(
-            hfac1, h1, kmt, A, rhs,
-            interpret=tridiag_pallas.force_interpret)
-    return jnp.stack([
-        impvmixt(rhs[n], vdc, psurf, kmt, dz, dzwr, c2dtt, aidif, varthick)
-        for n in range(rhs.shape[0])])
+    c2dtt = jnp.reshape(c2dtt, (km, 1, 1))
+    hfac = _as3(dz, km) / c2dtt
+    A = _coupling(vdc, dz, dzwr, km, aidif)
+    H1 = hfac[0] + (psurf / (const.GRAV * c2dtt[0, 0, 0])
+                    if varthick else 0.0)
+    H1 = jnp.broadcast_to(H1, rhs.shape[2:])
+    return _solve(hfac, H1, A, kmt, rhs)
 
 
 def impvmixt(rhs, vdc, psurf, kmt, dz, dzwr, c2dtt, aidif: float,
@@ -153,20 +166,8 @@ def impvmixt(rhs, vdc, psurf, kmt, dz, dzwr, c2dtt, aidif: float,
 
     Returns dT, (km, ny, nx); caller forms T_new = T_old + dT.
     """
-    km = rhs.shape[0]
-    if _pallas_path(dz, rhs.dtype):
-        return impvmixt_batch(rhs[None], vdc, psurf, kmt, dz, dzwr, c2dtt,
-                              aidif, varthick)[0]
-    c2dtt = jnp.reshape(c2dtt, (km, 1, 1))
-    hfac = _as3(dz, km) / c2dtt
-    A = aidif * _mid_spacing_r(dz, dzwr, km) * vdc
-    A = A.at[-1].set(0.0)
-    H1 = hfac[0] + (psurf / (const.GRAV * c2dtt[0, 0, 0])
-                    if varthick else 0.0)
-    H1 = jnp.broadcast_to(H1, rhs.shape[1:])
-    rhs_terms = [hfac * rhs]
-    (dT,) = _thomas(hfac, H1, A, kmt, rhs_terms)
-    return dT
+    return impvmixt_batch(rhs[None], vdc, psurf, kmt, dz, dzwr, c2dtt,
+                          aidif, varthick)[0]
 
 
 def impvmixt_correct(rhs1, vdc, psurf, kmt, dz, dzwr, c2dtt, aidif: float,
@@ -187,20 +188,8 @@ def impvmixu(rhs_u, rhs_v, vvc, kmu, dz, dzwr, c2dtu, aidif: float):
     for the modified RHS (already times c2dtu); the two components share one
     factorization. Returns (Fu, Fv)."""
     km = rhs_u.shape[0]
-    if _pallas_path(dz, rhs_u.dtype):
-        from pop2_tpu import tridiag_pallas
-        hfac1 = dz / c2dtu
-        A = aidif * _mid_spacing_r(dz, dzwr, km) * vvc
-        A = A.at[-1].set(0.0)
-        h1 = jnp.broadcast_to(hfac1[0], rhs_u.shape[1:])
-        out = tridiag_pallas.thomas(
-            hfac1, h1, kmu, A, jnp.stack([rhs_u, rhs_v]),
-            interpret=tridiag_pallas.force_interpret)
-        return out[0], out[1]
     hfac = _as3(dz, km) / c2dtu
-    A = aidif * _mid_spacing_r(dz, dzwr, km) * vvc
-    A = A.at[-1].set(0.0)
+    A = _coupling(vvc, dz, dzwr, km, aidif)
     H1 = jnp.broadcast_to(hfac[0], rhs_u.shape[1:])
-    rhs_terms = [hfac * rhs_u, hfac * rhs_v]
-    Fu, Fv = _thomas(hfac, H1, A, kmu, rhs_terms)
-    return Fu, Fv
+    out = _solve(hfac, H1, A, kmu, jnp.stack([rhs_u, rhs_v]))
+    return out[0], out[1]

@@ -18,7 +18,7 @@ averaging the |values| with the partner's sign (:1977-1986).
 
 Vector fields flip sign across the fold (isign = -1, :1936-1956).
 
-TPU-first: the fold is a static-index gather (a reverse + roll on the top
+The fold is a static-index gather (a reverse + roll on the top
 rows), fully expressible as XLA ops; under pjit the reversed row exchange
 becomes a collective-permute pattern across the x-axis of the mesh.
 """

@@ -23,7 +23,7 @@ def test_vert_grid_gx1v7():
     assert np.allclose(dz[:16], 1000.0)      # 10 m surface layers (cm)
     assert (np.diff(dz) >= -1e-6).all()      # monotone non-decreasing
     assert 5.0e5 < dz.sum() < 6.0e5          # ~5500 m total
-    # byte-identical reuse through the grid builder (VERDICT r3 #4)
+    # byte-identical reuse through the grid builder
     from pop2_tpu.io import grid_files
     dz2 = grid_files.read_vert_grid(f"{REF}/gx1v7_vert_grid", 60)
     assert np.array_equal(dz, dz2)

@@ -236,3 +236,43 @@ def test_horiz_varying_background_model_runs():
     for _ in range(3):
         st, _ = m.advance(st)
     assert np.isfinite(m.diagnostics(st)["KE"])
+
+
+def _dot_precisions(jaxpr):
+    """``precision`` of every dot_general in a jaxpr, sub-jaxprs included."""
+    found = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            found.append(eqn.params["precision"])
+        for v in eqn.params.values():
+            for sub in (v if isinstance(v, (tuple, list)) else (v,)):
+                if hasattr(sub, "eqns"):
+                    found += _dot_precisions(sub)
+                elif hasattr(sub, "jaxpr") and hasattr(sub.jaxpr, "eqns"):
+                    found += _dot_precisions(sub.jaxpr)
+    return found
+
+
+@pytest.mark.parametrize("stage", ["buoydiff", "kpp_coeffs"])
+def test_kpp_contractions_use_highest_precision(stage, kcfg, kgrid):
+    """KPP's contractions over km (RHOAVG, the reference velocities) ask
+    for full float32 precision, so a GPU never runs them in TF32."""
+    import jax
+    st = kpp.build_statics(kcfg, kgrid)
+    tr = _profile(kcfg, kgrid)
+    if stage == "buoydiff":
+        fn = lambda t: kpp.buoydiff(kcfg, kgrid, st, t)  # noqa: E731
+        args = (tr,)
+    else:
+        km, ny, nx = kcfg.km, kcfg.ny, kcfg.nx
+        z3, z2 = jnp.zeros((km, ny, nx)), jnp.zeros((2, ny, nx))
+
+        def fn(t, u):
+            return kpp.kpp_coeffs(kcfg, kgrid, grid_bc(kcfg), st, t, u, u,
+                                  z2, z2[0], z2, 1000.0, 1000.0)
+        args = (tr, z3)
+    precisions = _dot_precisions(jax.make_jaxpr(fn)(*args).jaxpr)
+    assert precisions, "no contraction found"
+    highest = jax.lax.Precision.HIGHEST
+    for p in precisions:
+        assert p is not None and all(q == highest for q in p), p

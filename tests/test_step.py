@@ -76,12 +76,9 @@ def test_exact_restart(tmp_path, mini_model):
     st = m.initial_state()
     for _ in range(6):
         st, _ = m.advance(st)
-    # canonicalize through host at the checkpoint step: on backends that
-    # emulate fp64 (TPU float32-pair emulation) a computed value's on-device
-    # representation may be a non-canonical (hi, lo) split that reads back as
-    # the same float64 but continues differently at the last ulp; a restart
-    # file always resumes from the canonical host representation, so the
-    # straight branch must too for a bitwise comparison to be well-posed
+    # canonicalize through host at the checkpoint step: a restart file
+    # always resumes from the host representation, so the straight branch
+    # does too, which keeps the bitwise comparison well-posed on any backend
     import jax.tree_util as jtu
     st = jtu.tree_map(lambda a: jnp.asarray(np.asarray(a)), st)
     straight = st

@@ -1,7 +1,9 @@
 """Tridiagonal solver tests vs a dense direct solve (oracle)."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
+import pytest
 
 from pop2_tpu import tridiag
 
@@ -136,38 +138,107 @@ def test_impvmixt_correct_is_surface_propagation():
     np.testing.assert_allclose(np.asarray(dT), np.asarray(dT2), atol=1e-14)
 
 
-def test_pallas_thomas_matches_scan(mini_cfg, mini_grid):
-    """The Pallas Thomas kernel (interpret mode on CPU) must match the
-    lax.scan path exactly in f32."""
-    import jax.numpy as jnp
-    from pop2_tpu import tridiag, tridiag_pallas
+def _thomas_case(rng, dtype, nr, km, ny, nx, kmt):
+    """Random well-posed systems in the kernel's argument convention."""
+    from pop2_tpu import constants as const
+    dz = rng.uniform(500.0, 2.0e4, km)
+    dzw = np.concatenate([[0.5 * dz[0]], 0.5 * (dz[:-1] + dz[1:]),
+                          [0.5 * dz[-1]]])
+    c2dtt = np.full(km, 2.0 * 3600.0)
+    vdc = rng.uniform(0.0, 50.0, (km, ny, nx)) * (
+        np.arange(1, km + 1)[:, None, None] < kmt[None])
+    rhs = rng.randn(nr, km, ny, nx)
+    psurf = rng.randn(ny, nx) * 1.0e3
+    hfac = jnp.asarray(dz / c2dtt, dtype)
+    A = tridiag._coupling(jnp.asarray(vdc, dtype), jnp.asarray(dz, dtype),
+                          jnp.asarray(1.0 / dzw, dtype), km, 1.0)
+    h1 = hfac[0] + jnp.asarray(psurf, dtype) / float(const.GRAV * c2dtt[0])
+    return hfac, h1, jnp.asarray(kmt), A, jnp.asarray(rhs, dtype)
 
+
+def _scan_reference(hfac, h1, kmax, A, rhs):
+    """The lax.scan sweep, all right-hand sides sharing one sweep."""
+    h3 = jnp.reshape(hfac, (-1, 1, 1))
+    return jnp.stack(tridiag._thomas(h3, h1, A, kmax, [h3 * r for r in rhs]))
+
+
+_TOL = {jnp.float32: 1e-5, jnp.float64: 1e-12}
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+@pytest.mark.parametrize("nr", [1, 2, 5])
+@pytest.mark.parametrize("grid_case", ["mini", "km60"])
+def test_pallas_thomas_matches_scan(grid_case, nr, dtype, mini_grid):
+    """The Thomas kernel (interpret mode) against the lax.scan sweep: the
+    mini grid (land, kmt < km) and a km=60 column set whose point count is
+    not a multiple of the block width."""
+    from pop2_tpu import tridiag_pallas
+    rng = np.random.RandomState(nr)
+    if grid_case == "mini":
+        kmt = np.asarray(mini_grid.KMT)
+        km = mini_grid.kmask_t.shape[0]
+    else:
+        km, kmt = 60, rng.randint(0, 61, (5, 37))
+        assert (5 * 37) % tridiag_pallas.BLOCK != 0
+    args = _thomas_case(rng, dtype, nr, km, *kmt.shape, kmt)
+    out = np.asarray(tridiag_pallas.thomas_blocks(*args, interpret=True))
+    ref = np.asarray(_scan_reference(*args))
+    assert out.dtype == ref.dtype == np.dtype(dtype)
+    np.testing.assert_allclose(out, ref, rtol=0,
+                               atol=_TOL[dtype] * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("p", [1, 127, 128, 129, 320 * 384])
+def test_thomas_layout_and_padding(p):
+    """Block width is a power of two no wider than BLOCK; the padded point
+    count covers P with less than one block of padding; padded columns do
+    not disturb the real ones."""
+    from pop2_tpu import tridiag_pallas
+    bp, p_pad = tridiag_pallas.layout(p)
+    assert bp & (bp - 1) == 0 and bp <= tridiag_pallas.BLOCK
+    assert p_pad % bp == 0 and p <= p_pad < p + bp
+    if p == 320 * 384:
+        assert bp == tridiag_pallas.BLOCK and p_pad == p
+        return
+    rng = np.random.RandomState(p)
+    kmt = rng.randint(0, 4, (1, p))
+    args = _thomas_case(rng, jnp.float64, 2, 3, 1, p, kmt)
+    out = np.asarray(tridiag_pallas.thomas_blocks(*args, interpret=True))
+    np.testing.assert_allclose(out, np.asarray(_scan_reference(*args)),
+                               rtol=0, atol=1e-12 * np.abs(out).max())
+
+
+def test_impvmix_dispatch_takes_scan_off_gpu(mini_cfg, mini_grid):
+    """Lowered for the CPU, the public solves take the scan: the jitted
+    result equals the scan bit for bit, and no Triton call is lowered."""
     cfg, grid = mini_cfg, mini_grid
     km, ny, nx = cfg.km, cfg.ny, cfg.nx
     rng = np.random.RandomState(7)
-    f32 = lambda *s: jnp.asarray(rng.randn(*s).astype(np.float32))
-    rhs = f32(2, km, ny, nx)
-    vdc = jnp.abs(f32(km, ny, nx)) * 0.1
-    psurf = f32(ny, nx) * 0.01
-    dz32 = jnp.asarray(np.asarray(grid.vgrid.dz), jnp.float32)
-    dzwr32 = jnp.asarray(np.asarray(grid.vgrid.dzwr), jnp.float32)
-    c2dtt = jnp.full((km,), 2.0 * cfg.time.dtt, jnp.float32)
+    rhs = jnp.asarray(rng.randn(2, km, ny, nx))
+    vdc = jnp.abs(jnp.asarray(rng.randn(km, ny, nx))) * 0.1
+    psurf = jnp.asarray(rng.randn(ny, nx)) * 0.01
+    c2dtt = jnp.full((km,), 2.0 * cfg.time.dtt)
+    args = (rhs, vdc, psurf, grid.KMT, grid.vgrid.dz, grid.vgrid.dzwr,
+            c2dtt, 1.0, True)
+    fn = jax.jit(tridiag.impvmixt_batch, static_argnums=(7, 8))
+    assert "triton" not in fn.lower(*args).as_text()
+    out = np.asarray(fn(*args))
+    ref = np.stack([np.asarray(tridiag.impvmixt(rhs[n], *args[1:]))
+                    for n in range(2)])
+    np.testing.assert_array_equal(out, ref)
 
-    try:
-        tridiag_pallas.USE_PALLAS = False
-        ref = jnp.stack([
-            tridiag.impvmixt(rhs[n], vdc, psurf, grid.KMT, dz32, dzwr32,
-                             c2dtt, 1.0, True) for n in range(2)])
-        tridiag_pallas.USE_PALLAS = True
-        tridiag_pallas.force_interpret = True
-        out = tridiag.impvmixt_batch(rhs, vdc, psurf, grid.KMT, dz32,
-                                     dzwr32, c2dtt, 1.0, True)
-        u_ref = tridiag.impvmixu(rhs[0], rhs[1], vdc, grid.KMU, dz32,
-                                 dzwr32, 2.0 * cfg.time.dtu, 1.0)
-    finally:
-        tridiag_pallas.USE_PALLAS = None
-        tridiag_pallas.force_interpret = False
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-6, atol=1e-7)
-    # impvmixu ran through the kernel too (USE_PALLAS was forced on)
-    assert np.isfinite(np.asarray(u_ref[0])).all()
+
+@pytest.mark.chip
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+def test_thomas_kernel_on_gpu_matches_scan(gpu, dtype):
+    """The compiled Triton kernel on the card against the scan at gx1v7
+    widths (km=60, 384x320 columns)."""
+    from pop2_tpu import tridiag_pallas
+    rng = np.random.RandomState(0)
+    kmt = rng.randint(0, 61, (384, 320))
+    args = jax.device_put(_thomas_case(rng, dtype, 2, 60, 384, 320, kmt),
+                          gpu)
+    out = np.asarray(tridiag_pallas.thomas_blocks(*args))
+    ref = np.asarray(jax.jit(_scan_reference)(*args))
+    np.testing.assert_allclose(out, ref, rtol=0,
+                               atol=_TOL[dtype] * np.abs(ref).max())
